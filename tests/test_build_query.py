@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import approximatenn_tpu as ann
-from approximatenn_tpu.harness.scoring import recall_at_k, score_guesses
+import approximatenn as ann
+from approximatenn.harness.scoring import recall_at_k, score_guesses
 
 
 @pytest.fixture(scope="module")
@@ -232,9 +232,9 @@ class TestAutoCapacity:
         """Clustered data: exact-max capacity explodes; auto stays linear
         and recall stays usable (points remain reachable via other tables
         and the graph)."""
-        import approximatenn_tpu as ann
-        from approximatenn_tpu.data import clustered_gaussian
-        from approximatenn_tpu.ops.distance import brute_force_knn
+        import approximatenn as ann
+        from approximatenn.data import clustered_gaussian
+        from approximatenn.ops.distance import brute_force_knn
 
         base = clustered_gaussian(rng, 6000, 16, n_clusters=8, zipf=1.5)
         import jax.numpy as jnp
@@ -252,7 +252,7 @@ class TestAutoCapacity:
         assert recall >= 0.6
 
     def test_bad_capacity_string(self, rng):
-        import approximatenn_tpu as ann
+        import approximatenn as ann
         import jax.numpy as jnp
 
         p = jnp.asarray(rng.standard_normal((100, 8)).astype(np.float32))
@@ -265,8 +265,8 @@ class TestChunkedBuild:
     def test_chunked_equals_monolithic(self, rng):
         """The host-chunked graph build must produce the identical graph."""
         import jax.numpy as jnp
-        from approximatenn_tpu.engine import build as B
-        from approximatenn_tpu.ops.transforms import derive_dims
+        from approximatenn.engine import build as B
+        from approximatenn.ops.transforms import derive_dims
 
         n, d, k, tries = 1200, 16, 6, 4
         pts = jnp.asarray(rng.standard_normal((n, d)).astype(np.float32))
@@ -292,11 +292,11 @@ class TestChunkedBuild:
 
 class TestDirectedProbing:
     def test_first_probe_is_own_code(self, rng):
-        from approximatenn_tpu.ops.hash import probe_codes_directed
+        from approximatenn.ops.hash import probe_codes_directed
         import jax.numpy as jnp
 
         proj = jnp.asarray(rng.standard_normal((7, 3, 5)).astype(np.float32))
-        from approximatenn_tpu.ops.hash import pack_signs
+        from approximatenn.ops.hash import pack_signs
         codes = pack_signs(proj)
         probes = probe_codes_directed(codes, proj, 6)
         assert probes.shape == (7, 3, 6)
@@ -305,7 +305,7 @@ class TestDirectedProbing:
     def test_flip_costs_ordering(self):
         """With one near-zero projection, the first extra probe must flip
         exactly that coordinate's bit."""
-        from approximatenn_tpu.ops.hash import pack_signs, probe_codes_directed
+        from approximatenn.ops.hash import pack_signs, probe_codes_directed
         import jax.numpy as jnp
 
         proj = jnp.array([[[3.0, -0.01, 2.0, -1.5]]])  # coord 1 is uncertain
@@ -321,9 +321,9 @@ class TestDirectedProbing:
         """On clustered data, query-directed probes (same count as the
         reference's ds+1) must not lose recall."""
         import jax.numpy as jnp
-        import approximatenn_tpu as ann
-        from approximatenn_tpu.data import clustered_gaussian
-        from approximatenn_tpu.ops.distance import brute_force_knn
+        import approximatenn as ann
+        from approximatenn.data import clustered_gaussian
+        from approximatenn.ops.distance import brute_force_knn
 
         base = clustered_gaussian(rng, 4000, 24, n_clusters=16, zipf=1.2)
         Xd = jnp.asarray(base)
@@ -344,8 +344,8 @@ class TestDirectedProbing:
     def test_directed_build_graph_quality(self, rng):
         """Directed probing during the build must not hurt graph recall."""
         import jax.numpy as jnp
-        import approximatenn_tpu as ann
-        from approximatenn_tpu.ops.distance import brute_force_knn_self
+        import approximatenn as ann
+        from approximatenn.ops.distance import brute_force_knn_self
 
         base = rng.standard_normal((2000, 16)).astype(np.float32)
         Xd = jnp.asarray(base)
@@ -364,7 +364,7 @@ class TestDirectedProbing:
 class TestDepthView:
     def test_with_depth_slices_tables(self, rng):
         import jax.numpy as jnp
-        import approximatenn_tpu as ann
+        import approximatenn as ann
 
         base = rng.standard_normal((2000, 16)).astype(np.float32)
         Xd = jnp.asarray(base)
@@ -386,9 +386,9 @@ class TestDepthView:
     def test_depth_recall_monotone(self, rng):
         """Deeper reads can only help recall (same probes)."""
         import jax.numpy as jnp
-        import approximatenn_tpu as ann
-        from approximatenn_tpu.data import clustered_gaussian
-        from approximatenn_tpu.ops.distance import brute_force_knn
+        import approximatenn as ann
+        from approximatenn.data import clustered_gaussian
+        from approximatenn.ops.distance import brute_force_knn
 
         base = clustered_gaussian(rng, 4000, 16, n_clusters=12, zipf=1.3)
         Xd = jnp.asarray(base)
@@ -408,7 +408,7 @@ class TestDepthView:
 class TestEdgeCases:
     def test_tiny_index(self, rng):
         import jax.numpy as jnp
-        import approximatenn_tpu as ann
+        import approximatenn as ann
 
         p = jnp.asarray(rng.standard_normal((3, 5)).astype(np.float32))
         idx, g, _ = ann.build(p, 2, tries=2)
@@ -419,7 +419,7 @@ class TestEdgeCases:
 
     def test_single_point(self, rng):
         import jax.numpy as jnp
-        import approximatenn_tpu as ann
+        import approximatenn as ann
 
         p = jnp.asarray(rng.standard_normal((1, 4)).astype(np.float32))
         idx, g, _ = ann.build(p, 1, tries=1)
@@ -429,8 +429,8 @@ class TestEdgeCases:
 
     def test_d_one(self, rng):
         import jax.numpy as jnp
-        import approximatenn_tpu as ann
-        from approximatenn_tpu.ops.distance import brute_force_knn
+        import approximatenn as ann
+        from approximatenn.ops.distance import brute_force_knn
 
         p = jnp.asarray(rng.standard_normal((200, 1)).astype(np.float32))
         q = p[:9]
@@ -443,7 +443,7 @@ class TestEdgeCases:
 
     def test_odd_dimension(self, rng):
         import jax.numpy as jnp
-        import approximatenn_tpu as ann
+        import approximatenn as ann
 
         p = jnp.asarray(rng.standard_normal((500, 37)).astype(np.float32))
         idx, g, _ = ann.build(p, 6, tries=3)

@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import approximatenn_tpu as ann
-from approximatenn_tpu.data import (
+import approximatenn as ann
+from approximatenn.data import (
     SPECS,
     ensure_groundtruth,
     normalize,
@@ -69,7 +69,7 @@ class TestSynthetic:
         assert ds.synthetic
 
     def test_clustered_is_skewed(self):
-        from approximatenn_tpu.data import clustered_gaussian
+        from approximatenn.data import clustered_gaussian
 
         rng = np.random.default_rng(0)
         x = clustered_gaussian(rng, 60_000, 16, n_clusters=32)

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from approximatenn_tpu.harness import compare_results, test_correctness, time_results
-from approximatenn_tpu.harness.compare_results import diffcount, ulp_units
-from approximatenn_tpu.harness.scoring import Score, score_guesses, true_ranks
+from approximatenn.harness import compare_results, test_correctness, time_results
+from approximatenn.harness.compare_results import diffcount, ulp_units
+from approximatenn.harness.scoring import Score, score_guesses, true_ranks
 
 
 class TestScoring:
@@ -79,8 +79,9 @@ class TestCLIs:
     def test_compare_results_parity(self, capsys):
         """Backend parity gate (role of compare_results.c): identical keys
         => identical graphs.  On the CPU-only test rig this degenerates to
-        CPU-vs-CPU, which must be exactly zero diff; on TPU rigs it
-        exercises true cross-backend parity."""
+        CPU-vs-CPU, which must be exactly zero diff; on a GPU
+        (chip_smoke.py's parity phase) it exercises true cross-backend
+        parity."""
         rc = compare_results.main(
             ["-n", "200", "-k", "5", "-d", "16", "-o", "2", "--seed", "0"]
         )
@@ -137,14 +138,14 @@ class TestCLIs:
         """Unit gate for the classifier: identical sets -> no diffs; a
         swap between two exactly-equidistant points -> tie_f64; a swap to
         a strictly-farther point -> real."""
-        from approximatenn_tpu.harness.compare_results import arbitrate_f64
+        from approximatenn.harness.compare_results import arbitrate_f64
 
         pts = rng.standard_normal((64, 8)).astype(np.float64)
         pts[1] = pts[0] + (pts[2] - pts[0]) * 0.5  # general position stays
         # exact duplicate distances: reflect point 3 about point 0 so
         # d(0,3) == d(0,40)
         pts[40] = 2 * pts[0] - pts[3]
-        import approximatenn_tpu as ann
+        import approximatenn as ann
 
         ga, _ = ann.brute_force_knn_self(pts.astype(np.float32), 4)
         ga = np.asarray(ga)

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from approximatenn_tpu import native
-from approximatenn_tpu.ops.buckets import build_table
-from approximatenn_tpu.ops.distance import brute_force_knn as jax_bf
+from approximatenn import native
+from approximatenn.ops.buckets import build_table
+from approximatenn.ops.distance import brute_force_knn as jax_bf
 
 
 def test_native_library_builds():

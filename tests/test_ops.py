@@ -5,19 +5,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from approximatenn_tpu.ops.buckets import (
+from approximatenn.ops.buckets import (
     bucket_counts,
     build_table,
     multiprobe_gather,
 )
-from approximatenn_tpu.ops.distance import (
+from approximatenn.ops.distance import (
     blocked_over_rows,
     brute_force_knn,
     brute_force_knn_self,
     candidate_dists,
 )
-from approximatenn_tpu.ops.hash import pack_signs, probe_codes
-from approximatenn_tpu.ops.topk import (
+from approximatenn.ops.hash import pack_signs, probe_codes
+from approximatenn.ops.topk import (
     dedup_topk,
     dedup_topk_sort,
     topk_iter,

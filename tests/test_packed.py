@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import approximatenn_tpu as ann
+import approximatenn as ann
 
 
 def _recall(ids, true_ids):
@@ -94,7 +94,7 @@ def test_packed_directed_probes(built):
 def test_packed_staged_equals_direct(built):
     """packed(staged=True) from a stage_points buffer == packed(points)
     when the staging dtype matches (same codes -> same CSR -> same rows)."""
-    from approximatenn_tpu.index import stage_points
+    from approximatenn.index import stage_points
 
     X, Y, index, true_ids = built
     direct = index.packed(X, store_points=False)
@@ -115,7 +115,7 @@ def test_packed_staged_self_contained(built):
     the staging buffer itself (lane-padded, +inf sentinel row) — no second
     corpus resident (the 10M single-chip serving budget).  Results match
     serving the same view against the raw corpus."""
-    from approximatenn_tpu.index import stage_points
+    from approximatenn.index import stage_points
 
     X, Y, index, true_ids = built
     staged = index.packed(stage_points(X), staged=True, store_points=True)
@@ -128,11 +128,6 @@ def test_packed_staged_self_contained(built):
     np.testing.assert_array_equal(np.asarray(ids_self), np.asarray(ids_raw))
     np.testing.assert_allclose(np.asarray(d_self), np.asarray(d_raw),
                                rtol=1e-5, atol=1e-5)
-    ids_f, _ = ann.search_packed_fused(staged, Y, interpret=True,
-                                       supercharge_rounds=2)
-    ids_fr, _ = ann.search_packed_fused(staged, X, Y, interpret=True,
-                                        supercharge_rounds=2)
-    np.testing.assert_array_equal(np.asarray(ids_f), np.asarray(ids_fr))
 
 
 def test_packed_bf16_storage(built):
@@ -147,7 +142,7 @@ def test_packed_bf16_storage(built):
 
 def test_packed_bf16_corpus_not_upcast(built):
     """A bf16 corpus passed to the search wrappers is served as stored
-    (never upcast to a full f32 copy — the 10M HBM budget, BASELINE.md);
+    (never upcast to a full f32 copy — the 10M device-memory budget);
     supercharge distance gathers upcast per-block via type promotion."""
     X, Y, index, true_ids = built
     Xb = X.astype(jnp.bfloat16)
@@ -213,9 +208,6 @@ def test_packed_supercharge_rounds(built):
         ids, _ = ann.search_packed(pi, X, Y, supercharge_rounds=rounds)
         recs.append(_recall(ids, true_ids))
     assert recs[1] >= recs[0] - 1e-9 and recs[2] >= recs[1] - 1e-9, recs
-    ids_f, _ = ann.search_packed_fused(pi, X, Y, interpret=True,
-                                       supercharge_rounds=2)
-    assert _recall(ids_f, true_ids) >= recs[1] - 0.02
 
 
 def test_packed_save_load_roundtrip(built, tmp_path):
@@ -257,8 +249,8 @@ def test_packed_int8_quantized_tier(built):
     pi = index.packed(X, dtype=jnp.int8)
     assert pi.point_rows.dtype == jnp.int8
     assert pi.scale is not None and float(pi.scale) > 0
-    # n_pad is 32-aligned for int8 (the fused kernel's DMA offset proof)
-    assert pi.n_pad % 32 == 0
+    # n_pad covers every slot plus the sentinel in whole super-rows
+    assert pi.n_pad % pi.super_width == 0 and pi.n_pad > index.n
     ids_q, dists_q = ann.search_packed(pi, X, Y)
     ids_f, _ = ann.search_packed(index.packed(X), X, Y)
     rq, rf = _recall(ids_q, true_ids), _recall(ids_f, true_ids)
@@ -295,7 +287,7 @@ def test_packed_int8_tombstones_near_origin():
     from the per-table top-k before the id map masked them.  packed() now
     relocates dead slots to the tail (positions >= n_live), where the
     purely positional sentinel masks exclude them BEFORE the top-k, in
-    both the XLA and the fused-kernel paths."""
+    the packed search path."""
     rng = np.random.default_rng(11)
     n, d, k = 2048, 24, 10
     X = rng.standard_normal((n, d)).astype(np.float32)
@@ -320,10 +312,7 @@ def test_packed_int8_tombstones_near_origin():
     dist[:, doomed] = np.inf
     true_live = np.argsort(dist, axis=1)[:, :k]
 
-    for ids, dd in (
-        ann.search_packed(pi2, X, Y0),
-        ann.search_packed_fused(pi2, X, Y0, interpret=True),
-    ):
+    for ids, dd in (ann.search_packed(pi2, X, Y0),):
         got = np.asarray(ids)
         assert not (set(got.ravel().tolist()) & set(doomed.tolist()))
         # real candidates survive: the top-1 slot is a live id at its
@@ -352,7 +341,7 @@ def test_packed_int8_staged(built):
     """Staged bf16 buffer + dtype=int8 quantizes at pack time and keeps the
     float staging buffer as the rerank/supercharge corpus (the 10M int8
     serving budget); staged int8 input is rejected."""
-    from approximatenn_tpu.index import stage_points
+    from approximatenn.index import stage_points
 
     X, Y, index, true_ids = built
     Xs = stage_points(X, jnp.bfloat16)
@@ -370,10 +359,10 @@ def test_packed_int8_staged(built):
 def test_packed_rows_big_matches_one_shot(built):
     """The huge-pack fill path (per-table donated updates, used above 2 GB
     output) must produce byte-identical rows to the one-shot gather."""
-    from approximatenn_tpu.index import _packed_rows, _packed_rows_big
+    from approximatenn.index import _packed_rows, _packed_rows_big
 
     X, _, index, _ = built
-    from approximatenn_tpu.index import stage_points
+    from approximatenn.index import stage_points
 
     pts_s = stage_points(X)
     # CSR slot ids, same construction packed() uses: recompute via packed()
@@ -404,7 +393,7 @@ def test_packed_save_load_bf16_points_roundtrip(built, tmp_path):
     """bf16 stored corpora must survive save/load: numpy silently writes
     ml_dtypes bfloat16 as void 'V2', which jnp.asarray rejects at load —
     every 2-byte float field goes through the uint16-word stash."""
-    from approximatenn_tpu.index import PackedIndex, stage_points
+    from approximatenn.index import PackedIndex, stage_points
 
     X, Y, index, _ = built
     Xs = stage_points(X, jnp.bfloat16)

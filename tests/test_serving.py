@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import approximatenn_tpu as ann
-from approximatenn_tpu.engine.serving import Server
+import approximatenn as ann
+from approximatenn.engine.serving import Server
 
 
 @pytest.fixture(scope="module")
@@ -93,7 +93,7 @@ def test_exact_int8_angular(data):
     srv = Server.build(X, k=5, metric="angular", storage_dtype=jnp.int8)
     assert srv.points.dtype == jnp.int8
     ids, _ = srv.search(Y)
-    from approximatenn_tpu.data.preprocess import prepare_points
+    from approximatenn.data.preprocess import prepare_points
 
     Xn, Yn = prepare_points(X, "angular"), prepare_points(Y, "angular")
     ti, _ = ann.brute_force_knn(Xn, Yn, 5)
@@ -125,40 +125,6 @@ def test_hash_packed_layout(data):
         for a, b in zip(np.asarray(ids), np.asarray(ti))
     )
     assert hits / (32 * 5) > 0.5
-
-
-def test_fused_min_batch_always_fused():
-    """Round-5 re-measure: the fused kernel wins at EVERY (n, batch)
-    with the current kernel (down to batch=4 at 1M), so the default
-    packed route is always-fused on accelerators; the threshold stays
-    injectable for forced-XLA workloads."""
-    from approximatenn_tpu.engine.serving import (
-        fused_min_batch,
-        packed_route,
-    )
-
-    for n in (10**5, 10**6, 2 * 10**6, 10**7, 10**8):
-        assert fused_min_batch(n) == 0
-    assert packed_route(10**6, 4, True) == "fused"
-    assert packed_route(10**6, 4, False) == "xla"  # CPU stays XLA
-    assert packed_route(10**6, 4, True, min_batch=8) == "xla"  # override
-
-
-@pytest.mark.slow
-def test_packed_routing_fused_kwargs(data):
-    """Fused-only kwargs pin the fused path (interpret mode exercises the
-    identical kernel on CPU); plain calls on CPU stay on search_packed."""
-    X, Y = data
-    srv = Server.build(X, k=5, mode="hash", layout="packed", tries=4, seed=2)
-    ids_x, _ = srv.search(Y)  # CPU -> search_packed
-    ids_f, _ = srv.search(Y, interpret=True)  # fused kw -> fused kernel
-    ti, _ = ann.brute_force_knn(X, Y, 5)
-    for ids in (ids_x, ids_f):
-        hits = sum(
-            len(set(a.tolist()) & set(b.tolist()))
-            for a, b in zip(np.asarray(ids), np.asarray(ti))
-        )
-        assert hits / (32 * 5) > 0.5
 
 
 def test_exact_angular(data):
@@ -206,18 +172,18 @@ class TestServerUpdates:
         )
 
     def test_exact_add_points_lane_padded_int8(self, data):
-        """Append through the staged two-phase route: tier conversion
-        with the existing scale + lane pad, rescan keeps serving."""
+        """int8 append: new rows are quantized with the server's existing
+        scale at the stored width, and the grown corpus serves exactly
+        over the quantization grid."""
         X, Y = data
         srv = Server.build(X[:2000], k=5, mode="exact",
-                           storage_dtype=jnp.int8, twophase_min_n=1000)
-        assert srv._twophase and srv.points.shape[1] == 128
+                           storage_dtype=jnp.int8)
         srv.add_points(np.asarray(X[2000:2050]))
-        assert srv.points.shape == (2050, 128)
-        assert srv._rescan is srv.points
-        ids, _ = srv.search(Y, interpret=True)  # two-phase route
+        assert srv.points.shape == (2050, 16)
+        assert srv.points.dtype == jnp.int8
+        ids, _ = srv.search(Y)
         s = float(srv._search_kw["scale"])
-        Xd = jnp.asarray(np.asarray(srv.points[:, :16], np.float32) * s)
+        Xd = jnp.asarray(np.asarray(srv.points, np.float32) * s)
         Yd = jnp.asarray(np.clip(np.round(np.asarray(Y) / s), -127, 127) * s)
         ti, _ = ann.brute_force_knn(Xd, Yd, 5)
         np.testing.assert_array_equal(
@@ -254,151 +220,52 @@ class TestServerUpdates:
         assert not np.isin(np.asarray(ids), [0, 1]).any()
 
 
-class TestTwophaseRouting:
-    """Every branch of the two-phase exact router (round-4 VERDICT item
-    3): thresholds, escape hatch, k gate, budget fallback, kwarg
-    filtering, and the describe()/route agreement — exercised on the CPU
-    mesh via ``interpret=True`` (the identical kernels, off-TPU) with the
-    injectable ``twophase_min_n`` knob standing in for the measured 2M
-    crossover.  Role of ``/root/reference/compare_results.c`` as a gate
-    over what production actually runs."""
+class TestExactMaxN:
+    """mode="auto" bounds the exact engine by the device's memory limit."""
 
-    N, D, K = 1200, 24, 6  # d % 128 != 0 -> the lane-padded-corpus path
+    class _Dev:
+        def __init__(self, stats):
+            self._stats = stats
 
-    @pytest.fixture(scope="class")
-    def tp(self):
-        rng = np.random.default_rng(7)
-        X = jnp.asarray(rng.standard_normal((self.N, self.D)).astype(np.float32))
-        Y = jnp.asarray(rng.standard_normal((16, self.D)).astype(np.float32))
-        srv = Server.build(X, k=self.K, mode="exact", twophase_min_n=1000)
-        ti, _ = ann.brute_force_knn(X, Y, self.K)
-        return X, Y, srv, np.sort(np.asarray(ti), 1)
+        def memory_stats(self):
+            return self._stats
 
-    def _count_twophase(self, monkeypatch):
-        import approximatenn_tpu.ops.pallas_exact as px
-
-        calls = {"n": 0}
-        orig = px.exact_knn_twophase
-
-        def spy(*a, **kw):
-            calls["n"] += 1
-            return orig(*a, **kw)
-
-        monkeypatch.setattr(px, "exact_knn_twophase", spy)
-        return calls
-
-    def test_staged_and_lane_padded(self, tp):
-        X, Y, srv, true_sorted = tp
-        assert srv._twophase
-        # round-5: ONE lane-padded corpus serves both engines — no
-        # duplicate rescan staging copy
-        assert srv.points.shape[1] == 128
-        assert srv._rescan is srv.points
-        assert srv.describe()["d"] == self.D  # logical dim reported
-
-    def test_route_taken_and_exact(self, tp, monkeypatch):
-        X, Y, srv, true_sorted = tp
-        calls = self._count_twophase(monkeypatch)
-        ids, dd = srv.search(Y, interpret=True)  # interpret: CPU route
-        assert calls["n"] == 1
-        np.testing.assert_array_equal(np.sort(np.asarray(ids), 1),
-                                      true_sorted)
-
-    def test_below_threshold_routes_rank(self, tp, monkeypatch):
-        X, Y, srv, true_sorted = tp
-        srv2 = Server.build(X, k=self.K, mode="exact",
-                            twophase_min_n=self.N + 1)
-        assert not srv2._twophase
-        assert srv2.describe()["exact_engine"] == "rank"
-        calls = self._count_twophase(monkeypatch)
-        ids, _ = srv2.search(Y)
-        assert calls["n"] == 0
-        np.testing.assert_array_equal(np.sort(np.asarray(ids), 1),
-                                      true_sorted)
-
-    def test_no_twophase_escape(self, tp, monkeypatch):
-        """The escape hatch must not leak into either engine's kwargs —
-        and two-phase-only knobs riding along must be stripped before the
-        rank dispatch (round-4 advisor TypeError finding)."""
-        X, Y, srv, true_sorted = tp
-        calls = self._count_twophase(monkeypatch)
-        ids, _ = srv.search(Y, no_twophase=True, seg=16, interpret=True)
-        assert calls["n"] == 0
-        np.testing.assert_array_equal(np.sort(np.asarray(ids), 1),
-                                      true_sorted)
-
-    def test_per_call_k_gate(self, tp, monkeypatch):
-        """k + 2 > 128 at call time falls back to the rank/XLA path
-        without the escape hatch leaking a TypeError."""
-        X, Y, srv, _ = tp
-        calls = self._count_twophase(monkeypatch)
-        ids, _ = srv.search(Y, k=130, no_twophase=False)
-        assert calls["n"] == 0
-        ti, _ = ann.brute_force_knn(X, Y, 130)
-        np.testing.assert_array_equal(np.sort(np.asarray(ids), 1),
-                                      np.sort(np.asarray(ti), 1))
-
-    def test_rank_only_knob_pins_rank(self, tp, monkeypatch):
-        """A rank-kernel-only knob (tile, merge, ...) pins the rank path
-        instead of TypeError-ing the two-phase engine."""
-        X, Y, srv, true_sorted = tp
-        calls = self._count_twophase(monkeypatch)
-        ids, _ = srv.search(Y, compute_dtype=jnp.float32)
-        assert calls["n"] == 0
-        np.testing.assert_array_equal(np.sort(np.asarray(ids), 1),
-                                      true_sorted)
-
-    def test_pad_budget_fallback(self, tp):
-        """A padded corpus over the HBM budget falls back to the rank
-        engine (unpadded corpus, no staging)."""
-        X, Y, srv, true_sorted = tp
-        srv2 = Server.build(X, k=self.K, mode="exact", twophase_min_n=1000,
-                            twophase_pad_budget_bytes=1000)
-        assert not srv2._twophase
-        assert srv2.points.shape[1] == self.D  # NOT padded
-        ids, _ = srv2.search(Y)
-        np.testing.assert_array_equal(np.sort(np.asarray(ids), 1),
-                                      true_sorted)
-
-    def test_describe_reports_actual_route(self, tp):
-        """On a CPU-resident corpus the plain-search route is the rank
-        path (device predicate), and describe must say so even though the
-        rescan buffer is staged (round-4 advisor label finding)."""
-        X, Y, srv, _ = tp
-        assert srv._twophase
-        assert srv.describe()["exact_engine"] == "rank"  # CPU resident
-        # but the interpret route (what the tests drive) IS two-phase
-        assert srv._route_twophase(srv.k, skw={"interpret": True})
-
-    def test_int8_twophase_route(self, tp, monkeypatch):
-        """The quantized tier routes two-phase with its scale intact."""
-        X, Y, srv, _ = tp
-        srv_q = Server.build(X, k=self.K, mode="exact",
-                             storage_dtype=jnp.int8, twophase_min_n=1000)
-        assert srv_q._twophase
-        calls = self._count_twophase(monkeypatch)
-        ids, _ = srv_q.search(Y, interpret=True)
-        assert calls["n"] == 1
-        # exact over the quantization grid
-        s = float(srv_q._search_kw["scale"])
-        Xd = jnp.asarray(
-            np.asarray(srv_q.points[:, : self.D], np.float32) * s
-        )
-        Yd = jnp.asarray(np.clip(np.round(np.asarray(Y) / s), -127, 127) * s)
-        ti, _ = ann.brute_force_knn(Xd, Yd, self.K)
-        np.testing.assert_array_equal(
-            np.sort(np.asarray(ids), 1), np.sort(np.asarray(ti), 1)
+    def test_from_bytes_limit(self):
+        from approximatenn.engine.serving import (
+            EXACT_CORPUS_SHARE,
+            default_exact_max_n,
         )
 
-    def test_fused_min_batch_injection(self, data):
-        """The packed fused-vs-XLA threshold is injectable (and reaches
-        packed_route)."""
-        from approximatenn_tpu.engine.serving import packed_route
+        dev = self._Dev({"bytes_limit": 60 << 30})
+        want = int(EXACT_CORPUS_SHARE * (60 << 30) // (128 * 4))
+        assert default_exact_max_n(128, 4, dev) == want
+        # narrower storage tiers fit proportionally more rows
+        assert default_exact_max_n(128, 2, dev) == 2 * want
+        assert default_exact_max_n(128, 1, dev) == 4 * want
 
-        assert packed_route(10_000, 8, True, min_batch=8) == "fused"
-        assert packed_route(10_000, 7, True, min_batch=8) == "xla"
-        assert packed_route(10_000, 8, False, min_batch=8) == "xla"
+    @pytest.mark.parametrize("stats", [None, {}, {"bytes_in_use": 5}])
+    def test_no_limit_takes_explicit_default(self, stats):
+        from approximatenn.engine.serving import (
+            EXACT_CORPUS_BYTES_NO_LIMIT,
+            default_exact_max_n,
+        )
+
+        assert default_exact_max_n(100, 4, self._Dev(stats)) == (
+            EXACT_CORPUS_BYTES_NO_LIMIT // 400)
+
+    def test_auto_mode_uses_device_bound(self, data, monkeypatch):
+        """Server.build(mode="auto") asks default_exact_max_n about the
+        corpus's device; a bound below n resolves hash."""
+        import approximatenn.engine.serving as serving
+
         X, _ = data
-        srv = Server.build(X, k=5, mode="hash", layout="packed", tries=4,
-                           seed=2, fused_min_batch=8)
-        assert srv._fused_min_batch == 8
+        seen = {}
+
+        def fake(d, itemsize, device):
+            seen.update(d=d, itemsize=itemsize, platform=device.platform)
+            return 100
+
+        monkeypatch.setattr(serving, "default_exact_max_n", fake)
+        srv = Server.build(X, k=5, tries=3, seed=2)
+        assert srv.mode == "hash"
+        assert seen == {"d": 16, "itemsize": 4, "platform": "cpu"}

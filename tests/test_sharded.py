@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-# big-shape virtual-mesh / interpret-mode kernel gates: the bulk of the
+# big-shape virtual-mesh gates: the bulk of the
 # suite's wall clock.  Inner loop: -m 'not slow'.
 pytestmark = pytest.mark.slow
 
-import approximatenn_tpu as ann
-from approximatenn_tpu.harness.scoring import recall_at_k
-from approximatenn_tpu.parallel.sharded import (
+import approximatenn as ann
+from approximatenn.harness.scoring import recall_at_k
+from approximatenn.parallel.sharded import (
     build_sharded,
     global_graph_sharded,
     make_mesh,
@@ -76,9 +76,8 @@ class TestShardedExact:
             search_exact_sharded(Xq, Y, 10, mesh=mesh8)
 
     def test_exact_sharded_bf16_tier(self, data, mesh8):
-        """bf16 stored corpus: per-shard oracle runs f32-over-rounded
-        values (the TPU kernel's semantics); neighbor sets track the f32
-        oracle closely."""
+        """bf16 stored corpus: each shard multiplies at storage width with
+        f32 accumulation; neighbor sets track the f32 oracle closely."""
         X, Y = data
         ids, _ = search_exact_sharded(
             jnp.asarray(X, jnp.bfloat16), Y, 10, mesh=mesh8)
@@ -134,7 +133,7 @@ class TestShardedSearch:
         """Per-shard packed CSR views: recall not worse than the sharded
         table path (superset candidates per shard), global ids, true
         distances, bf16 storage accepted."""
-        from approximatenn_tpu.parallel.sharded import (
+        from approximatenn.parallel.sharded import (
             packed_sharded,
             search_packed_sharded,
         )
@@ -161,43 +160,6 @@ class TestShardedSearch:
         ids_b, _ = search_packed_sharded(sidx, spk_b, X, Y, mesh=mesh8)
         rec_b = recall_at_k(np.asarray(tq), np.asarray(ids_b), 10)
         assert rec_b >= rec_p - 0.05, (rec_b, rec_p)
-
-    def test_packed_fused_sharded(self, sidx, data, mesh8):
-        """Fused probe-window kernel per shard (interpret on the CPU
-        mesh): recall comparable to the XLA sharded packed path; int8
-        views share ONE global scale and re-score to true distances."""
-        from approximatenn_tpu.parallel.sharded import (
-            packed_sharded,
-            search_packed_fused_sharded,
-            search_packed_sharded,
-        )
-
-        X, Y = data
-        tq, _ = ann.brute_force_knn(jnp.asarray(X), jnp.asarray(Y), 10)
-        spk = packed_sharded(sidx, X, mesh=mesh8)
-        ids_x, _ = search_packed_sharded(sidx, spk, X, Y, mesh=mesh8)
-        ids_f, dd_f = search_packed_fused_sharded(
-            sidx, spk, X, Y, mesh=mesh8, window=spk.window)
-        rec_f = recall_at_k(np.asarray(tq), np.asarray(ids_f), 10)
-        rec_x = recall_at_k(np.asarray(tq), np.asarray(ids_x), 10)
-        # exact-window candidates vs super-row spillover: close, not equal
-        assert rec_f >= rec_x - 0.05, (rec_f, rec_x)
-        ids_f, dd_f = np.asarray(ids_f), np.asarray(dd_f)
-        for j in range(10):
-            want = ((Y[5] - X[ids_f[5, j]]) ** 2).sum()
-            np.testing.assert_allclose(dd_f[5, j], want, rtol=1e-4)
-        # int8 tier sharded: one global scale, rescored true distances
-        spk8 = packed_sharded(sidx, X, mesh=mesh8, dtype=jnp.int8)
-        assert spk8.point_rows.dtype == jnp.int8
-        assert spk8.scale is not None
-        ids_8, dd_8 = search_packed_fused_sharded(
-            sidx, spk8, X, Y, mesh=mesh8, window=spk8.window)
-        rec_8 = recall_at_k(np.asarray(tq), np.asarray(ids_8), 10)
-        assert rec_8 >= rec_f - 0.05, (rec_8, rec_f)
-        ids_8, dd_8 = np.asarray(ids_8), np.asarray(dd_8)
-        for j in range(10):
-            want = ((Y[5] - X[ids_8[5, j]]) ** 2).sum()
-            np.testing.assert_allclose(dd_8[5, j], want, rtol=1e-4)
 
     def test_mesh_size_one_matches_spirit(self, data):
         """A 1-device mesh must work (degenerate distribution)."""
@@ -231,9 +193,8 @@ class TestShardedSearch:
         would dominate; probes/windows cover every bucket so each
         shard's candidate set is its full slice and the merge must equal
         global brute force."""
-        from approximatenn_tpu.parallel.sharded import (
+        from approximatenn.parallel.sharded import (
             packed_sharded,
-            search_packed_fused_sharded,
             search_packed_sharded,
         )
 
@@ -248,9 +209,7 @@ class TestShardedSearch:
         ids_t, _ = search_sharded(sidx, X, Y, mesh=mesh8)
         spk = packed_sharded(sidx, mesh=mesh8, window=64)
         ids_p, _ = search_packed_sharded(sidx, spk, X, Y, mesh=mesh8)
-        ids_f, _ = search_packed_fused_sharded(sidx, spk, X, Y, mesh=mesh8)
-        for name, ids in (("table", ids_t), ("packed", ids_p),
-                          ("fused", ids_f)):
+        for name, ids in (("table", ids_t), ("packed", ids_p)):
             ids = np.asarray(ids)
             assert (ids < sidx.n).all(), (name, ids)  # k REAL ids, no
             # sentinel shrinkage, no pad leakage
@@ -271,11 +230,11 @@ class TestShardedSearch:
 class TestCheckpoint:
     def test_save_load_roundtrip(self, rng, tmp_path):
         import jax
-        from approximatenn_tpu.parallel.checkpoint import (
+        from approximatenn.parallel.checkpoint import (
             load_sharded_index,
             save_sharded_index,
         )
-        from approximatenn_tpu.parallel.sharded import (
+        from approximatenn.parallel.sharded import (
             build_sharded,
             make_mesh,
             search_sharded,
@@ -295,11 +254,11 @@ class TestCheckpoint:
 
     def test_shard_count_mismatch_rejected(self, rng, tmp_path):
         import pytest
-        from approximatenn_tpu.parallel.checkpoint import (
+        from approximatenn.parallel.checkpoint import (
             load_sharded_index,
             save_sharded_index,
         )
-        from approximatenn_tpu.parallel.sharded import build_sharded, make_mesh
+        from approximatenn.parallel.sharded import build_sharded, make_mesh
 
         mesh4 = make_mesh(4)
         pts = rng.standard_normal((64, 8)).astype(np.float32)
@@ -313,11 +272,11 @@ class TestCheckpoint:
         """ShardedPacked persists (round-2 VERDICT item 7): serving
         restarts skip the per-shard re-pack, in every storage tier —
         including bf16 (npz-hostile dtype) and int8 (replicated scale)."""
-        from approximatenn_tpu.parallel.checkpoint import (
+        from approximatenn.parallel.checkpoint import (
             load_sharded_packed,
             save_sharded_packed,
         )
-        from approximatenn_tpu.parallel.sharded import (
+        from approximatenn.parallel.sharded import (
             build_sharded,
             make_mesh,
             packed_sharded,
@@ -349,11 +308,11 @@ class TestCheckpoint:
         np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
 
     def test_packed_shard_count_mismatch_rejected(self, rng, tmp_path):
-        from approximatenn_tpu.parallel.checkpoint import (
+        from approximatenn.parallel.checkpoint import (
             load_sharded_packed,
             save_sharded_packed,
         )
-        from approximatenn_tpu.parallel.sharded import (
+        from approximatenn.parallel.sharded import (
             build_sharded,
             make_mesh,
             packed_sharded,
@@ -469,7 +428,7 @@ class TestShardedRound4:
         r0 = recall_at_k(np.asarray(tq), np.asarray(base), 10)
         r1 = recall_at_k(np.asarray(tq), np.asarray(wide), 10)
         assert r1 >= r0 - 1e-9, (r0, r1)
-        from approximatenn_tpu.parallel.sharded import (
+        from approximatenn.parallel.sharded import (
             packed_sharded, search_packed_sharded,
         )
 
@@ -498,14 +457,14 @@ class TestShardedRound4:
         ids = np.asarray(ids)
         want = ((Yn[3] - Xn[ids[3, 0]]) ** 2).sum()
         np.testing.assert_allclose(np.asarray(dists)[3, 0], want, rtol=1e-4)
-        # packed + fused serve the angular index without passing points
-        from approximatenn_tpu.parallel.sharded import (
+        # packed serves the angular index without passing points
+        from approximatenn.parallel.sharded import (
             packed_sharded,
-            search_packed_fused_sharded,
+            search_packed_sharded,
         )
 
         spk = packed_sharded(sidx, mesh=mesh8)
-        fi, _ = search_packed_fused_sharded(sidx, spk, None, Y, mesh=mesh8)
+        fi, _ = search_packed_sharded(sidx, spk, None, Y, mesh=mesh8)
         assert recall_at_k(np.asarray(ta), np.asarray(fi), 10) > 0.85
 
     def test_graph_precision_knob_accepted(self, data, mesh8):
@@ -521,7 +480,7 @@ class TestShardedRound4:
 
     def test_checkpoint_roundtrip_with_metric_and_points(self, mesh8, rng,
                                                          tmp_path):
-        from approximatenn_tpu.parallel.checkpoint import (
+        from approximatenn.parallel.checkpoint import (
             load_sharded_index,
             save_sharded_index,
         )
@@ -539,7 +498,7 @@ class TestShardedRound4:
 
 
 def test_sharded_directed_probes(rng):
-    from approximatenn_tpu.parallel.sharded import (
+    from approximatenn.parallel.sharded import (
         build_sharded, make_mesh, search_sharded,
     )
 

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from approximatenn_tpu.ops import transforms as T
+from approximatenn.ops import transforms as T
 
 
 def naive_hadamard(d):

@@ -4,8 +4,8 @@ counterpart — the reference's knobs are hand-picked, ``ann.h:46-65``)."""
 import numpy as np
 import pytest
 
-import approximatenn_tpu as ann
-from approximatenn_tpu.engine.tuning import Trial, TuneReport, tune
+import approximatenn as ann
+from approximatenn.engine.tuning import Trial, TuneReport, tune
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +47,7 @@ def test_tune_server_round_trip(corpus):
     ids, dists = srv.search(Q)
     assert ids.shape == (64, 5)
     true_ids, _ = ann.exact_search(X, Q, 5)
-    from approximatenn_tpu.harness.scoring import recall_at_k
+    from approximatenn.harness.scoring import recall_at_k
 
     got = recall_at_k(np.asarray(true_ids), np.asarray(ids), 5)
     assert abs(got - rep.best.recall) < 1e-9, (got, rep.best.recall)
@@ -103,11 +103,9 @@ def test_tune_angular_metric(corpus):
 
 
 def test_tune_batch_knob(corpus):
-    """Trials dispatch at the PRODUCTION batch size (round-2 VERDICT item
-    2): every call Server.search sees has exactly `batch` rows so the
-    batch-dependent routing is the one production hits, the packed
-    trials record which path was measured, and recall is scored over the
-    FULL sample (batch < m slices it into batch-shaped calls — one small
+    """Trials dispatch at the PRODUCTION batch size: every call
+    Server.search sees has exactly `batch` rows, and recall is scored
+    over the FULL sample (batch < m slices it into batch-shaped calls — one small
     batch would make the recall gate statistically noisy)."""
     X, Q = corpus
     for batch in (16, 200):
@@ -117,8 +115,8 @@ def test_tune_batch_knob(corpus):
         assert rep.batch == batch
         assert rep.as_dict()["batch"] == batch
         pk = [t for t in rep.trials if t.engine == "packed"]
-        # CPU run: below FUSED_MIN_BATCH and off-accelerator -> XLA path
-        assert all(t.knobs["path"] == "xla" for t in pk)
+        assert pk and all(set(t.knobs) == {"n_probes", "window",
+                                           "rerank_width"} for t in pk)
         assert all(0.0 <= t.recall <= 1.0 for t in rep.trials)
         # the winner still serves
         ids, _ = rep.server().search(Q)
@@ -168,7 +166,7 @@ def test_ann_bench_tune_cli(capsys):
     """ann_bench --tune prints one TuneReport JSON line."""
     import json
 
-    from approximatenn_tpu.harness import ann_bench
+    from approximatenn.harness import ann_bench
 
     rc = ann_bench.main([
         "--dataset", "gaussian-10k", "--max-n", "2000", "--k", "5",

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import approximatenn_tpu as ann
+import approximatenn as ann
 
 
 @pytest.fixture(scope="module")
@@ -158,7 +158,7 @@ def test_bulk_add_matches_bucket_semantics(base):
     t0, t2 = np.asarray(index.tables), np.asarray(idx2.tables)
     c0, c2 = np.asarray(index.counts), np.asarray(idx2.counts)
     # recompute expected codes through the frozen transforms
-    from approximatenn_tpu.ops.hash import pack_signs
+    from approximatenn.ops.hash import pack_signs
 
     centered = Y - index.row_means
     proj = centered @ index.bases.reshape(index.tries * index.d_short, 16).T

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from approximatenn_tpu.parallel import multihost
-from approximatenn_tpu.parallel.sharded import make_mesh
-from approximatenn_tpu.utils.profiling import StageTimes, fence, trace
+from approximatenn.parallel import multihost
+from approximatenn.parallel.sharded import make_mesh
+from approximatenn.utils.profiling import StageTimes, trace
 
 
 def test_stage_times_accumulate():
@@ -21,8 +21,50 @@ def test_stage_times_accumulate():
 
 
 def test_fence_handles_non_arrays():
-    fence({"x": 1, "y": None})
-    fence(jnp.arange(5))
+    """A stage waits on whatever its body appends, arrays or not."""
+    st = StageTimes()
+    with st.stage("mixed") as sink:
+        sink.append({"x": 1, "y": None})
+        sink.append(jnp.arange(5))
+    assert st.counts["mixed"] == 1
+
+
+def test_on_accelerator():
+    from approximatenn.utils.runtime import on_accelerator
+
+    class Dev:
+        def __init__(self, platform):
+            self.platform = platform
+
+    assert not on_accelerator(jax.devices())  # the CPU test mesh
+    assert on_accelerator([Dev("gpu"), Dev("gpu")])
+    assert not on_accelerator([Dev("gpu"), Dev("cpu")])
+
+
+@pytest.mark.parametrize("env_dir", [None, "from_env"])
+def test_enable_compile_cache(env_dir, monkeypatch, tmp_path):
+    """$JAX_COMPILATION_CACHE_DIR wins when set; otherwise one fixed
+    directory inside the checkout.  Every compile is cached."""
+    from approximatenn.utils import runtime
+
+    old = (jax.config.jax_compilation_cache_dir,
+           jax.config.jax_persistent_cache_min_compile_time_secs)
+    if env_dir is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        want = str(runtime.COMPILE_CACHE_DIR)
+    else:
+        want = str(tmp_path / env_dir)
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", want)
+    try:
+        assert runtime.enable_compile_cache() == want
+        assert jax.config.jax_compilation_cache_dir == want
+        assert jax.config.jax_persistent_cache_min_compile_time_secs == 0.0
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old[0])
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", old[1])
+    repo = runtime.COMPILE_CACHE_DIR.parent
+    assert (repo / "approximatenn").is_dir()
+    assert ".jax_cache/" in (repo / ".gitignore").read_text().split()
 
 
 @pytest.mark.slow
@@ -49,7 +91,7 @@ def test_process_local_array_roundtrip(rng):
 
 
 def test_device_init_and_cleanup_registry():
-    from approximatenn_tpu.utils import runtime
+    from approximatenn.utils import runtime
 
     dev = runtime.device_init()
     assert dev is not None
@@ -65,7 +107,7 @@ def test_device_init_and_cleanup_registry():
 
 def test_device_init_float64_requires_x64():
     import pytest
-    from approximatenn_tpu.utils import runtime
+    from approximatenn.utils import runtime
 
     with pytest.raises(RuntimeError, match="x64"):
         runtime.device_init(require_dtype="float64")
