@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -81,8 +82,9 @@ def load(
     max_queries: int | None = None,
     allow_synthetic: bool = True,
 ) -> Dataset:
-    """Load a named dataset, falling back to a deterministic synthetic
-    stand-in with the same (n, d, metric) when files are absent."""
+    """Load a named dataset, falling back (with a warning) to a
+    deterministic synthetic stand-in with the same (n, d, metric) when
+    files are absent."""
     spec = SPECS.get(name)
     dirpath = data_root() / name
     base_p = _find(dirpath, "base")
@@ -107,6 +109,10 @@ def load(
         )
     if not allow_synthetic:
         raise FileNotFoundError(f"dataset {name!r}: no files under {dirpath}")
+    warnings.warn(
+        f"dataset {name!r}: no files under {dirpath} (set $ANN_DATA to the "
+        "directory holding them); using the seeded synthetic stand-in",
+        stacklevel=2)
     n = min(spec["n"], max_n) if max_n else spec["n"]
     nq = min(spec["nq"], max_queries) if max_queries else spec["nq"]
     return synthesize(name, n, spec["d"], nq, spec["metric"])

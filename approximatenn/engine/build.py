@@ -23,6 +23,7 @@ which case the whole build is a single jittable function.
 
 from __future__ import annotations
 
+import warnings
 from functools import partial
 
 import jax
@@ -40,31 +41,53 @@ from ..ops.transforms import (
     materialize_bases,
     sample_ortho_params_batch,
 )
+from ..utils.runtime import memory_budget
 
 
-def resolve_capacity(counts, capacity) -> int:
-    """Bucket capacity from the occupancy histogram.
+# Share of a device's memory limit that the bucket tables may fill at the
+# default (exact-max) capacity, and the budget where a device reports no
+# limit (the CPU backend).  Past it the build takes the "auto" capacity.
+TABLE_SHARE = 0.25
+TABLE_BYTES_NO_LIMIT = 4 << 30
 
-    None -> exact max (reference semantics, ``alg.c:257-260``); int ->
+
+def resolve_capacity(counts, capacity, device=None) -> int:
+    """Bucket capacity from the occupancy histogram ``counts`` (...,
+    tries, 2^d_short).
+
+    None -> exact max (reference semantics, ``alg.c:257-260``) while its
+    tables, (tries, 2^d_short, max) int32 per device, fit
+    :data:`TABLE_SHARE` of ``device``'s memory limit, else "auto"; int ->
     pinned; "auto" -> min(max, 32x mean occupancy, floor 8).
 
     The exact max tracks the hottest bucket, which on clustered
     (real-world) corpora tracks the largest cluster — table memory and the
     multiprobe candidate-list length then explode (the reference shares
-    this failure mode).  Capacity is the quality/throughput knob: a low
+    this failure mode: on a clustered 1M x 128 corpus, 10 tries ask for
+    ~51 GiB of tables).  Capacity is the quality/throughput knob: a low
     cap drops overflowing points from that table (less recall, less
     work), a high one reads mostly padding on skewed corpora; 32x mean is
     the balanced default.  Sweep it via ann_bench --capacity."""
+    import numpy as np
+
+    if capacity is None:
+        tmax = max(1, int(counts.max()))
+        tries, nb = counts.shape[-2:]
+        table_bytes = tries * nb * tmax * np.dtype(itype).itemsize
+        budget = memory_budget(TABLE_SHARE, TABLE_BYTES_NO_LIMIT, device)
+        if table_bytes <= budget:
+            return tmax
+        warnings.warn(
+            f"exact-max bucket capacity {tmax} needs {table_bytes} bytes of "
+            f"tables, over the device budget of {budget}; building with "
+            f'capacity="auto"', stacklevel=3)
+        capacity = "auto"
     if isinstance(capacity, str):
         if capacity != "auto":
             raise ValueError(f"capacity must be an int, None, or 'auto'; got {capacity!r}")
-        import numpy as np
-
         c = np.asarray(counts)
         cap = max(32.0 * c.mean(), 8.0)
         return max(1, int(min(c.max(), np.ceil(cap))))
-    if capacity is None:
-        return max(1, int(counts.max()))
     return max(1, int(capacity))
 
 
@@ -380,7 +403,9 @@ def build(
     reference's save=NULL fast path is :func:`build_graph_only`).
     ``capacity`` pins the bucket capacity for a sync-free, fully-jittable
     build (overflow dropped); None reads the exact max occupancy back once,
-    as the reference's host histogram does (``alg.c:252-266``); "auto" =
+    as the reference's host histogram does (``alg.c:252-266``), and falls
+    back to "auto" (with a warning) when the exact-max tables outgrow a
+    share of the device's memory; "auto" =
     ``min(exact max, 32x mean occupancy)`` with a floor of 8 — the single
     policy, defined in :func:`resolve_capacity`.
     Exact-max capacity — the reference's policy — makes table memory scale

@@ -43,10 +43,10 @@ def default_exact_max_n(d: int, itemsize: int, device=None) -> int:
     ``memory_stats()["bytes_limit"]``, or
     :data:`EXACT_CORPUS_BYTES_NO_LIMIT` where the device reports none.
     Narrower storage tiers fit proportionally more rows."""
-    device = jax.devices()[0] if device is None else device
-    limit = (device.memory_stats() or {}).get("bytes_limit")
-    budget = EXACT_CORPUS_SHARE * limit if limit else EXACT_CORPUS_BYTES_NO_LIMIT
-    return int(budget // (d * itemsize))
+    from ..utils.runtime import memory_budget
+
+    budget = memory_budget(EXACT_CORPUS_SHARE, EXACT_CORPUS_BYTES_NO_LIMIT, device)
+    return budget // (d * itemsize)
 
 
 @dataclass

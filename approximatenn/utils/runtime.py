@@ -8,7 +8,8 @@ registry (``register_cleanup``/``gpu_cleanup``, ``:93-114``).  JAX owns
 context/teardown, so the equivalents here are thinner but the capability
 surface is preserved: discovery + preference order, dtype capability
 validation (float64 needs the x64 flag), the one accelerator-or-CPU
-question callers ask (:func:`on_accelerator`), the persistent compile
+question callers ask (:func:`on_accelerator`), memory bounds taken from
+the device (:func:`memory_budget`), the persistent compile
 cache (:func:`enable_compile_cache`), and an atexit-backed cleanup
 registry for resources the library hands out (mmap'd datasets, trace
 sessions).
@@ -64,6 +65,17 @@ def on_accelerator(devices) -> bool:
     backend: where it does, the tuners time their trials; on the CPU they
     rank by a deterministic cost proxy."""
     return all(d.platform != "cpu" for d in devices)
+
+
+def memory_budget(share: float, no_limit_bytes: int, device=None) -> int:
+    """``share`` of ``device``'s ``memory_stats()["bytes_limit"]`` (default:
+    JAX's first device), or ``no_limit_bytes`` where the device reports
+    no limit (the CPU backend)."""
+    import jax
+
+    device = jax.devices()[0] if device is None else device
+    limit = (device.memory_stats() or {}).get("bytes_limit")
+    return int(share * limit) if limit else int(no_limit_bytes)
 
 
 def enable_compile_cache() -> str:

@@ -16,10 +16,10 @@ second JAX process on the card would find no memory left):
   numpy — independent of the engines under test;
 - exact serving: ``Server.build`` in auto mode over all queries, then the
   bf16 and int8 storage tiers and one k=100 and one k=256 call;
-- hash build and search: ``ann.build`` (bucket capacity "auto", the
-  dataset runner's default — the exact-max capacity of the reference
-  makes tables scale with the largest bucket, which on clustered data
-  outgrows the card), ``ann.search`` and a packed-layout hash ``Server``;
+- hash build and search: ``ann.build`` at its default bucket capacity
+  (the reference's exact max while its tables fit a share of the card's
+  memory, else "auto": on this clustered corpus the exact max would need
+  ~51 GiB of tables), ``ann.search`` and a packed-layout hash ``Server``;
 - parity: ``harness/compare_results`` GPU against CPU at its gate config.
 
 ``--four`` builds ``ShardedServer`` over a 4-GPU mesh with 4,000,000 x 128
@@ -27,7 +27,7 @@ points (SIFT-1M's per-card share x4), exact and hash/packed, checks the
 row shards sit on four distinct devices and compares with the host oracle.
 
 Each phase prints one JSON line with its compile and steady seconds, its
-recall against the oracle and the device's ``peak_bytes_in_use``.  The
+recall against the oracle and device memory (see ``DeviceMemory``).  The
 line before the last is ``nvidia-smi``'s name and power limit; the last is
 ``{"ok": ..., "device": {"platform", "kind", "count"}}``.  A failed phase
 fails the run: exit code 1 and ``"ok": false``.
@@ -68,7 +68,8 @@ DIST_REL_TOL = 2.0 ** -20
 GRID_TIE_RECALL_MIN = 0.999
 BF16_RECALL_MIN = 0.98
 INT8_RECALL_MIN = 0.90
-# hash recall@10 floors (tries=10, capacity "auto"): one card measured
+# hash recall@10 floors (tries=10, capacity "auto", which the default
+# resolves to on this corpus): one card measured
 # 0.974 (table) and 0.978 (packed) on an H100; the 4-card mesh, whose
 # shards each build tables and a graph over 1M of the 4M rows, measured
 # 0.9035
@@ -98,11 +99,27 @@ def gpu_name_power() -> str:
     return "; ".join(line.strip() for line in out.splitlines() if line.strip())
 
 
-def peak_bytes() -> int | None:
-    import jax
+class DeviceMemory:
+    """Device memory by phase.  JAX keeps one running peak per device and
+    cannot reset it, so a phase reports that running peak (the maximum
+    over the devices), whether the phase raised it (then it is the phase's
+    own peak) and the bytes in use at the phase's end."""
 
-    stats = jax.devices()[0].memory_stats() or {}
-    return stats.get("peak_bytes_in_use")
+    def __init__(self):
+        self.peak = 0
+
+    def read(self) -> dict:
+        import jax
+
+        stats = [d.memory_stats() or {} for d in jax.devices()]
+        peak = max(s.get("peak_bytes_in_use", 0) for s in stats)
+        rec = {"peak_bytes_in_use": peak, "peak_set_in_phase": peak > self.peak,
+               "bytes_in_use": max(s.get("bytes_in_use", 0) for s in stats)}
+        self.peak = max(self.peak, peak)
+        return rec
+
+
+MEMORY = DeviceMemory()
 
 
 def phase_device(min_count: int = 1) -> dict:
@@ -234,7 +251,7 @@ def phase_exact(base, queries, sample, oracle, *, batch: int = BATCH,
     rec["dist_err_rel"] = rel
     if not rel <= DIST_REL_TOL:
         raise AssertionError(f"exact_f32: distance error {rel} > {DIST_REL_TOL}")
-    rec["peak_bytes_in_use"] = peak_bytes()
+    rec.update(MEMORY.read())
     recs.append(rec)
     log(rec)
 
@@ -249,7 +266,7 @@ def phase_exact(base, queries, sample, oracle, *, batch: int = BATCH,
         check(f"tie_recall_at_{kk}",
               tie_recall(base, qs, np.asarray(ids_k), true_d, kk),
               GRID_TIE_RECALL_MIN, rec)
-        rec["peak_bytes_in_use"] = peak_bytes()
+        rec.update(MEMORY.read())
         recs.append(rec)
         log(rec)
     del srv
@@ -276,7 +293,7 @@ def phase_exact(base, queries, sample, oracle, *, batch: int = BATCH,
               tie_recall(grid, gq, ids[sample], grid_d, k),
               GRID_TIE_RECALL_MIN, rec)
         check("recall_at_10", recall(ids[sample], true_i, k), floor, rec)
-        rec["peak_bytes_in_use"] = peak_bytes()
+        rec.update(MEMORY.read())
         recs.append(rec)
         log(rec)
         del srv, grid
@@ -297,29 +314,29 @@ def phase_hash(base, queries, sample, oracle, *, batch: int = BATCH,
     qb = _batches(queries, batch)
     recs = []
     t0 = time.perf_counter()
-    index, graph, _ = ann.build(base, k, tries=tries, seed=seed,
-                                capacity="auto")
+    index, graph, _ = ann.build(base, k, tries=tries, seed=seed)
     jax.block_until_ready(graph)
     build_s = time.perf_counter() - t0
 
     base_d = jax.device_put(base)
     ids, _, rec = serve_all(lambda q: ann.search(index, base_d, q), qb)
-    rec = {"phase": "hash_table", "build_s": build_s, "tries": tries, **rec}
+    rec = {"phase": "hash_table", "build_s": build_s, "tries": tries,
+           "capacity": index.tmax, **rec}
     check("recall_at_10", recall(ids[sample], true_i, k), floor, rec)
-    rec["peak_bytes_in_use"] = peak_bytes()
+    rec.update(MEMORY.read())
     recs.append(rec)
     log(rec)
     del index, graph, base_d
 
     t0 = time.perf_counter()
     srv = Server.build(base, k=k, mode="hash", layout="packed", tries=tries,
-                       seed=seed, capacity="auto")
+                       seed=seed)
     jax.block_until_ready(srv.packed.point_rows)
     build_s = time.perf_counter() - t0
     ids, _, rec = serve_all(srv.search, qb)
     rec = {"phase": "hash_packed", "build_s": build_s, "tries": tries, **rec}
     check("recall_at_10", recall(ids[sample], true_i, k), floor, rec)
-    rec["peak_bytes_in_use"] = peak_bytes()
+    rec.update(MEMORY.read())
     recs.append(rec)
     log(rec)
     return recs
@@ -373,7 +390,7 @@ def phase_four(base, queries, sample, oracle, *, n_devices: int = 4,
     rec = {"phase": "four_exact", "build_s": build_s,
            "shard_devices": sorted(str(d) for d in shard_devs), **rec}
     check("recall_at_10", recall(ids[sample], true_i, k), F32_RECALL_MIN, rec)
-    rec["peak_bytes_in_use"] = peak_bytes()
+    rec.update(MEMORY.read())
     recs.append(rec)
     log(rec)
     del srv
@@ -387,7 +404,7 @@ def phase_four(base, queries, sample, oracle, *, n_devices: int = 4,
     rec = {"phase": "four_hash_packed", "build_s": build_s, "tries": tries,
            **rec}
     check("recall_at_10", recall(ids[sample], true_i, k), hash_floor, rec)
-    rec["peak_bytes_in_use"] = peak_bytes()
+    rec.update(MEMORY.read())
     recs.append(rec)
     log(rec)
     return recs

@@ -251,6 +251,55 @@ class TestAutoCapacity:
         recall = np.mean([len(set(got[i]) & set(want[i])) / 10 for i in range(50)])
         assert recall >= 0.6
 
+    class _Dev:
+        def __init__(self, stats):
+            self._stats = stats
+
+        def memory_stats(self):
+            return self._stats
+
+    @pytest.mark.parametrize("limit, want_auto", [
+        (4 * 2 * 64 * 1000 * 4, False),  # exact-max tables fit the share
+        (4 * 2 * 64 * 1000 * 4 - 4, True),  # one word over: "auto"
+        (None, False),  # no limit reported: the explicit CPU budget
+    ])
+    def test_default_capacity_bounded_by_device(self, limit, want_auto):
+        """capacity=None keeps the reference's exact max while its tables
+        fit TABLE_SHARE of the device's memory limit, else takes "auto"
+        and says so."""
+        import warnings
+
+        from approximatenn.engine import build as B
+
+        counts = np.ones((2, 64), np.int32)
+        counts[:, 0] = 1000  # one hot bucket
+        assert B.TABLE_SHARE == 0.25
+        dev = self._Dev({"bytes_limit": limit} if limit else None)
+        auto = B.resolve_capacity(counts, "auto")
+        assert auto < 1000
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tmax = B.resolve_capacity(counts, None, dev)
+        assert tmax == (auto if want_auto else 1000)
+        assert bool(caught) == want_auto
+
+    def test_build_default_capacity_falls_back_to_auto(self, rng, monkeypatch):
+        """ann.build with no capacity on a corpus whose exact-max tables
+        outgrow the budget builds the "auto" index instead of failing."""
+        import jax.numpy as jnp
+
+        from approximatenn.data import clustered_gaussian
+        from approximatenn.engine import build as B
+
+        Xd = jnp.asarray(clustered_gaussian(rng, 3000, 16, n_clusters=4, zipf=1.5))
+        auto, _, _ = ann.build(Xd, 10, tries=3, seed=0, capacity="auto")
+        monkeypatch.setattr(B, "TABLE_BYTES_NO_LIMIT", 1 << 10)
+        with pytest.warns(UserWarning, match="capacity=\"auto\""):
+            bounded, _, _ = ann.build(Xd, 10, tries=3, seed=0)
+        assert bounded.tmax == auto.tmax
+        np.testing.assert_array_equal(np.asarray(bounded.tables),
+                                      np.asarray(auto.tables))
+
     def test_bad_capacity_string(self, rng):
         import approximatenn as ann
         import jax.numpy as jnp

@@ -50,6 +50,29 @@ def test_host_oracle_matches_argsort(tiny):
     assert cs.tie_recall(base, queries[sample], wrong, dd, 10) == 0.0
 
 
+def test_device_memory_max_over_devices(monkeypatch):
+    """Each reading takes the maximum over every device and says whether
+    the phase raised the process's running peak."""
+    import jax
+
+    class Dev:
+        def __init__(self, peak, used):
+            self.stats = {"peak_bytes_in_use": peak, "bytes_in_use": used}
+
+        def memory_stats(self):
+            return self.stats
+
+    devs = [Dev(10, 4), Dev(30, 2), Dev(20, 9)]
+    monkeypatch.setattr(jax, "devices", lambda *a: devs)
+    mem = cs.DeviceMemory()
+    assert mem.read() == {"peak_bytes_in_use": 30, "peak_set_in_phase": True,
+                          "bytes_in_use": 9}
+    assert mem.read()["peak_set_in_phase"] is False  # peak unchanged
+    devs[0].stats["peak_bytes_in_use"] = 40
+    assert mem.read()["peak_bytes_in_use"] == 40
+    assert mem.peak == 40
+
+
 def test_phase_exact_tiny(tiny):
     base, queries, sample, oracle = tiny
     recs = cs.phase_exact(base, queries, sample, oracle, batch=16)

@@ -84,6 +84,44 @@ class TestSynthetic:
         np.testing.assert_array_equal(np.sort(gt, 1), np.sort(np.asarray(ids), 1))
 
 
+class TestLoad:
+    """``datasets.load`` reads staged files from ``$ANN_DATA`` and never
+    swaps in the synthetic stand-in silently."""
+
+    def test_reads_staged_files(self, tmp_path, rng, monkeypatch):
+        from approximatenn.data import datasets
+
+        base = rng.standard_normal((40, 6)).astype(np.float32)
+        (tmp_path / "gaussian-10k").mkdir()
+        np.save(tmp_path / "gaussian-10k" / "base.npy", base)
+        np.save(tmp_path / "gaussian-10k" / "query.npy", base[:5])
+        monkeypatch.setenv("ANN_DATA", str(tmp_path))
+        import warnings
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            ds = datasets.load("gaussian-10k")
+        assert not ds.synthetic
+        np.testing.assert_array_equal(ds.base, base)
+        assert ds.queries.shape == (5, 6)
+
+    def test_synthetic_fallback_warns(self, tmp_path, monkeypatch):
+        from approximatenn.data import datasets
+
+        monkeypatch.setenv("ANN_DATA", str(tmp_path))
+        with pytest.warns(UserWarning, match="ANN_DATA.*synthetic stand-in"):
+            ds = datasets.load("gaussian-10k", max_n=300, max_queries=7)
+        assert ds.synthetic and ds.base.shape == (300, 32)
+        assert ds.queries.shape == (7, 32)
+
+    def test_no_synthetic_raises(self, tmp_path, monkeypatch):
+        from approximatenn.data import datasets
+
+        monkeypatch.setenv("ANN_DATA", str(tmp_path))
+        with pytest.raises(FileNotFoundError, match="gaussian-10k"):
+            datasets.load("gaussian-10k", allow_synthetic=False)
+
+
 class TestAngular:
     def test_normalize(self, rng):
         x = rng.standard_normal((10, 6)).astype(np.float32) * 7

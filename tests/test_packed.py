@@ -109,6 +109,16 @@ def test_packed_staged_equals_direct(built):
     np.testing.assert_array_equal(np.asarray(ids_s), np.asarray(ids_d))
 
 
+def test_packed_rerank_width(built):
+    """A wider rerank pool keeps the output shape and never loses recall."""
+    X, Y, index, true_ids = built
+    pv = index.packed(X)
+    ids0, _ = ann.search_packed(pv, X, Y)
+    ids_w, _ = ann.search_packed(pv, X, Y, rerank_width=24)
+    assert ids_w.shape == ids0.shape
+    assert _recall(ids_w, true_ids) >= _recall(ids0, true_ids) - 1e-9
+
+
 @pytest.mark.slow
 def test_packed_staged_self_contained(built):
     """A staged view with store_points=True serves supercharge/rerank from

@@ -67,6 +67,48 @@ def test_enable_compile_cache(env_dir, monkeypatch, tmp_path):
     assert ".jax_cache/" in (repo / ".gitignore").read_text().split()
 
 
+@pytest.mark.parametrize("stats, want", [
+    ({"bytes_limit": 1000}, 250),
+    (None, 7),  # no memory_stats at all (the CPU backend)
+    ({"bytes_in_use": 5}, 7),  # stats without a limit
+])
+def test_memory_budget(stats, want):
+    from approximatenn.utils.runtime import memory_budget
+
+    class Dev:
+        def memory_stats(self):
+            return stats
+
+    assert memory_budget(0.25, 7, Dev()) == want
+
+
+def test_alias_package():
+    """A second name returns the very modules of the package, submodules
+    included, with their own specs intact."""
+    import importlib
+    import sys
+
+    import approximatenn
+    import approximatenn.engine.serving as serving
+    from approximatenn.utils.alias import alias_package
+
+    finder = alias_package("ann_alias_probe", "approximatenn")
+    try:
+        assert importlib.import_module("ann_alias_probe") is approximatenn
+        mod = importlib.import_module("ann_alias_probe.engine.serving")
+        assert mod is serving
+        assert mod.__spec__.name == "approximatenn.engine.serving"
+        from ann_alias_probe.engine.serving import Server  # noqa: F401
+
+        assert Server is approximatenn.Server
+        with pytest.raises(ModuleNotFoundError):
+            importlib.import_module("ann_alias_probe.no_such_module")
+    finally:
+        sys.meta_path.remove(finder)
+        for name in [m for m in sys.modules if m.startswith("ann_alias_probe")]:
+            del sys.modules[name]
+
+
 @pytest.mark.slow
 def test_trace_noops_gracefully(tmp_path):
     with trace(str(tmp_path)) as d:
